@@ -5,12 +5,12 @@
 # client` terminal directly: start/test/quit, Client.scala:61-94).
 #
 # Usage: start-client.sh [host:port ...]   (default compute-node-0:2551)
-#   APSIM_IMAGE  image name      (default apsim-tpu)
+#   APSIM_IMAGE  image name      (default apsim)
 #   APSIM_DATA   host corpus dir (default ./data/maildir_small)
 #   APSIM_STORE  host store dir  (default ./store; lets `start <table>`
 #                                 bulk-load what start-preprocess.sh wrote)
 set -euo pipefail
-IMAGE="${APSIM_IMAGE:-apsim-tpu}"
+IMAGE="${APSIM_IMAGE:-apsim}"
 DATA="${APSIM_DATA:-$(pwd)/data/maildir_small}"
 STORE="${APSIM_STORE:-$(pwd)/store}"
 REMOTES=()

@@ -18,7 +18,7 @@
 # preprocessed table server-side (LoadData semantics, Client.scala:49-59).
 set -euo pipefail
 N="${1:-2}"
-IMAGE="${APSIM_IMAGE:-apsim-tpu}"
+IMAGE="${APSIM_IMAGE:-apsim}"
 DATA="${APSIM_DATA:-$(pwd)/data/maildir_small}"
 STORE="${APSIM_STORE:-$(pwd)/store}"
 mkdir -p "$STORE"

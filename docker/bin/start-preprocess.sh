@@ -5,13 +5,13 @@
 # the table + its _MAX statistic into a store volume the cluster mounts).
 #
 # Usage: start-preprocess.sh [table]
-#   APSIM_IMAGE  image name          (default apsim-tpu)
+#   APSIM_IMAGE  image name          (default apsim)
 #   APSIM_DATA   host corpus dir     (default ./data/maildir_small)
 #   APSIM_STORE  host store dir      (default ./store — shared with
 #                                     start-cluster.sh / start-client.sh)
 set -euo pipefail
 TABLE="${1:-SMALL_DATA}"
-IMAGE="${APSIM_IMAGE:-apsim-tpu}"
+IMAGE="${APSIM_IMAGE:-apsim}"
 DATA="${APSIM_DATA:-$(pwd)/data/maildir_small}"
 STORE="${APSIM_STORE:-$(pwd)/store}"
 mkdir -p "$STORE"

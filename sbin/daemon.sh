@@ -2,7 +2,7 @@
 # Start/stop one apsim similarity server as a daemon.
 # Parity: the reference's sbin/daemon.sh runs the assembly jar with the akka
 # and app conf paths (sbin/daemon.sh:18); here the service is
-# `python -m apsim_tpu.cli serve` with layered JSON configs.
+# `python -m apsim.cli serve` with layered JSON configs.
 #
 # Usage: daemon.sh (start|stop|status) [--config conf/app.json ...] [serve args...]
 
@@ -22,7 +22,7 @@ case "$cmd" in
       echo "apsim server already running (pid $(cat "$PID_FILE"))"
       exit 0
     fi
-    nohup python -m apsim_tpu.cli serve "$@" \
+    nohup python -m apsim.cli serve "$@" \
       > "$LOG_DIR/server.out" 2>&1 &
     echo $! > "$PID_FILE"
     echo "started apsim server pid $(cat "$PID_FILE"), log $LOG_DIR/server.out"

@@ -4,4 +4,4 @@
 set -euo pipefail
 REMOTE="${1:-127.0.0.1:2551}"
 shift || true
-exec python -m apsim_tpu.cli bench --remote "$REMOTE" "$@"
+exec python -m apsim.cli bench --remote "$REMOTE" "$@"

@@ -25,18 +25,18 @@ import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
 
-from apsim_tpu.parallel import global_mesh, init_multihost  # noqa: E402
+from apsim.parallel import global_mesh, init_multihost  # noqa: E402
 
 init_multihost(f"127.0.0.1:{coord_port}", num_processes=2, process_id=pid)
 assert jax.device_count() == 8
 
 import numpy as np  # noqa: E402
 
-from apsim_tpu import AllPairsConfig  # noqa: E402
-from apsim_tpu.parallel import MeshEngine  # noqa: E402
-from apsim_tpu.serve.replica import OpLogLeader, follow  # noqa: E402
-from apsim_tpu.vector.batch import CSRMatrix  # noqa: E402
-from apsim_tpu.vector.sparse import SparseVector  # noqa: E402
+from apsim import AllPairsConfig  # noqa: E402
+from apsim.parallel import MeshEngine  # noqa: E402
+from apsim.serve.replica import OpLogLeader, follow  # noqa: E402
+from apsim.vector.batch import CSRMatrix  # noqa: E402
+from apsim.vector.sparse import SparseVector  # noqa: E402
 
 rng = np.random.default_rng(7)
 vecs = []
@@ -58,7 +58,7 @@ cfg = AllPairsConfig(
 eng = MeshEngine(cfg, mesh=global_mesh())
 
 if pid == 0:
-    from apsim_tpu.serve import ClientConnection, RpcServer, SimilarityServer
+    from apsim.serve import ClientConnection, RpcServer, SimilarityServer
 
     leader = OpLogLeader(eng, port=repl_port, n_followers=1)
     leader.wait_followers()

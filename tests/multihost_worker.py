@@ -23,7 +23,7 @@ import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
 
-from apsim_tpu.parallel import (  # noqa: E402
+from apsim.parallel import (  # noqa: E402
     global_mesh,
     init_multihost,
     is_coordinator,
@@ -36,10 +36,10 @@ assert len(jax.local_devices()) == 4
 
 import numpy as np  # noqa: E402
 
-from apsim_tpu import AllPairsConfig  # noqa: E402
-from apsim_tpu.parallel import MeshEngine  # noqa: E402
-from apsim_tpu.vector.batch import CSRMatrix  # noqa: E402
-from apsim_tpu.vector.sparse import SparseVector  # noqa: E402
+from apsim import AllPairsConfig  # noqa: E402
+from apsim.parallel import MeshEngine  # noqa: E402
+from apsim.vector.batch import CSRMatrix  # noqa: E402
+from apsim.vector.sparse import SparseVector  # noqa: E402
 
 rng = np.random.default_rng(5)
 vecs = []
@@ -78,7 +78,7 @@ assert "probe" in out.output and "0" in out.output["probe"], out.output
 if shard_axis == "dims":
     # out-of-core engine over the same 2-process global mesh: chunk axis
     # sharded across hosts, shard_map psum riding the distributed runtime
-    from apsim_tpu.parallel import MeshChunkedAllPairs  # noqa: E402
+    from apsim.parallel import MeshChunkedAllPairs  # noqa: E402
 
     mce = MeshChunkedAllPairs(cfg, mesh=global_mesh(), chunk_dim=16)
     mce.build(csr)

@@ -11,7 +11,7 @@ from typing import List, Sequence, Set, Tuple
 
 import numpy as np
 
-from apsim_tpu.vector.batch import CSRMatrix
+from apsim.vector.batch import CSRMatrix
 
 
 def brute_force_pairs(

@@ -3,7 +3,7 @@ perf baseline and a second parity oracle)."""
 
 import numpy as np
 
-from apsim_tpu.bench.baseline import ReferenceBaseline, measure_baseline
+from apsim.bench.baseline import ReferenceBaseline, measure_baseline
 
 from oracle import brute_force_pairs, random_sparse_corpus
 
@@ -42,7 +42,7 @@ def test_measure_baseline_reports():
     assert rep["decided_pairs"] == 40 * 39 / 2
     assert rep["decided_pairs_per_sec"] > 0
     assert rep["pair_set"] == brute_force_pairs(
-        __import__("apsim_tpu.vector.batch", fromlist=["CSRMatrix"]).CSRMatrix(
+        __import__("apsim.vector.batch", fromlist=["CSRMatrix"]).CSRMatrix(
             40, csr.n_cols, csr.indptr[:41],
             csr.indices[: int(csr.indptr[40])], csr.data[: int(csr.indptr[40])],
         ),

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from apsim_tpu import AllPairsConfig
-from apsim_tpu.engine import ChunkedAllPairs
+from apsim import AllPairsConfig
+from apsim.engine import ChunkedAllPairs
 
 from oracle import brute_force_pairs, random_sparse_corpus
 
@@ -25,46 +25,34 @@ def corpus():
     return random_sparse_corpus(rng, 220, DIM)
 
 
-def test_chunked_matches_oracle(corpus):
+@pytest.mark.parametrize("panels", [True, False], ids=["panels", "stripes"])
+def test_chunked_matches_oracle(corpus, panels):
     eng = ChunkedAllPairs(
         AllPairsConfig(
             vector_dim=DIM, query_tile=64, row_bucket=64, dim_bucket=64
         ),
         chunk_dim=128,
     )
+    eng._use_panels = panels
     stats = eng.build(corpus)
+    assert eng._panel_ok() == panels
     assert stats["n_chunks"] >= 2  # actually exercises the chunk loop
     for tau in (0.3, 0.5, 0.7):
         assert eng.all_pairs(tau).pair_set() == brute_force_pairs(corpus, tau)
 
 
-def test_chunked_single_slab_tier_matches_oracle(corpus):
-    """When the full int8 matrix fits, the join runs the dense kernel in
-    one launch (the single-slab tier) — exact parity."""
-    eng = ChunkedAllPairs(small_cfg(use_pallas="on"), chunk_dim=128)
-    eng._use_single_slab = True  # opt-in (measured slower than the sweep)
-    eng.build(corpus)
-    assert eng._panel_ok() and eng._single_slab_ok(eng._panel_state())
-    for tau in (0.3, 0.6):
-        assert eng.all_pairs(tau).pair_set() == brute_force_pairs(corpus, tau)
-
-
 def test_chunked_panel_path_matches_oracle(corpus):
-    """Block-panel Pallas join (interpret mode off-TPU): multi-panel sweep
-    with off-diagonal pairs, exact parity, cache invalidation on insert.
-    The single-slab tier is disabled so the SWEEP itself is exercised."""
-    eng = ChunkedAllPairs(
-        small_cfg(use_pallas="on"), chunk_dim=128, panel_rows=64
-    )
-    eng._use_single_slab = False
+    """int8 panel join: multi-panel sweep with off-diagonal pairs, exact
+    parity, cache invalidation on insert."""
+    eng = ChunkedAllPairs(small_cfg(), chunk_dim=128, panel_rows=64)
     eng.build(corpus)
     assert eng._panel_ok()
     geom = eng._panel_geom()
-    assert geom[4] >= 2  # n_panels: actually exercises off-diagonal pairs
+    assert geom[1] >= 2  # n_panels: actually exercises off-diagonal pairs
     for tau in (0.3, 0.6):
         assert eng.all_pairs(tau).pair_set() == brute_force_pairs(corpus, tau)
     # streaming insert invalidates the sorted-COO cache; join stays exact
-    from apsim_tpu.vector.batch import CSRMatrix
+    from apsim.vector.batch import CSRMatrix
 
     extra = [(f"x{i}", corpus.row(i)) for i in range(3)]
     eng.insert(extra, tau=0.6)
@@ -83,15 +71,13 @@ def test_chunked_panel_rolling_sweep(corpus):
     and mid-scan flushes, with caps forced low to also exercise the
     rebuild-on-overflow retry inside flush_window.  Exact parity."""
     eng = ChunkedAllPairs(
-        small_cfg(use_pallas="on", extract_cap=1024), chunk_dim=128,
-        panel_rows=64,
+        small_cfg(extract_cap=1024), chunk_dim=128, panel_rows=64,
     )
-    eng._use_single_slab = False
     eng._panel_resident_bytes = 0  # force rolling mode
     eng.build(corpus)
     assert eng._panel_ok()
     state = eng._panel_state()
-    rb, _, _, _, n_panels, d_cap = state["geom"]
+    rb, n_panels, d_cap = state["geom"]
     assert n_panels >= 3  # several I-blocks at B<=2
     eng._panel_sweep_bytes = 4 * rb * d_cap  # S=4 -> B=2, jsync=1
     for tau in (0.2, 0.6):
@@ -99,10 +85,10 @@ def test_chunked_panel_rolling_sweep(corpus):
 
 
 def test_chunked_panel_single_panel(corpus):
-    # auto geometry on a small corpus: one panel, diagonal schedule only
-    eng = ChunkedAllPairs(small_cfg(use_pallas="on"), chunk_dim=128)
+    # auto geometry on a small corpus: one panel, diagonal pair only
+    eng = ChunkedAllPairs(small_cfg(), chunk_dim=128)
     eng.build(corpus)
-    assert eng._panel_ok()
+    assert eng._panel_ok() and eng._panel_geom()[1] == 1
     assert eng.all_pairs(0.4).pair_set() == brute_force_pairs(corpus, 0.4)
 
 
@@ -110,10 +96,10 @@ def test_chunked_panel_all_dormant_corpus():
     """Every dim df==1 -> ZERO device entries; the panel path must still
     run (empty slabs, 0 pairs), and a later duplicate insert must activate
     the archived dims and surface the pair through the panel rejoin."""
-    from apsim_tpu.vector.sparse import Vectors
+    from apsim.vector.sparse import Vectors
 
     cfg = AllPairsConfig(vector_dim=300, query_tile=64, row_bucket=64,
-                         dim_bucket=64, use_pallas="on")
+                         dim_bucket=64)
     eng = ChunkedAllPairs(cfg, chunk_dim=64, panel_rows=64)
     eng.build([
         (f"v{i}", Vectors.sparse(300, [i * 3, i * 3 + 1], [0.6, 0.8]))
@@ -130,16 +116,14 @@ def test_chunked_panel_all_dormant_corpus():
 def test_chunked_panel_tiny_caps(corpus):
     # overflow-retry protocol: caps far below the candidate count
     eng = ChunkedAllPairs(
-        small_cfg(use_pallas="on", extract_cap=1024), chunk_dim=128,
-        panel_rows=64,
+        small_cfg(extract_cap=1024), chunk_dim=128, panel_rows=64,
     )
-    eng._use_single_slab = False  # exercise the SWEEP's retry protocol
     eng.build(corpus)
     assert eng.all_pairs(0.2).pair_set() == brute_force_pairs(corpus, 0.2)
 
 
 def test_chunked_matches_dense_engine(corpus):
-    from apsim_tpu import Engine
+    from apsim import Engine
 
     cfg = AllPairsConfig(
         vector_dim=DIM, query_tile=64, row_bucket=64, dim_bucket=64
@@ -183,7 +167,8 @@ def test_chunked_topk(corpus):
         np.testing.assert_allclose(got, want, atol=1e-9)
 
 
-def test_chunked_overflow_retry(corpus):
+@pytest.mark.parametrize("panels", [True, False], ids=["panels", "stripes"])
+def test_chunked_overflow_retry(corpus, panels):
     eng = ChunkedAllPairs(
         AllPairsConfig(
             vector_dim=DIM, query_tile=64, row_bucket=64, dim_bucket=64,
@@ -191,6 +176,7 @@ def test_chunked_overflow_retry(corpus):
         ),
         chunk_dim=128,
     )
+    eng._use_panels = panels
     eng.build(corpus)
     got = eng.all_pairs(0.3).pair_set()
     assert got == brute_force_pairs(corpus, 0.3)
@@ -198,15 +184,16 @@ def test_chunked_overflow_retry(corpus):
 
 
 def test_chunked_int8_stripes_opt_in_matches(corpus):
-    # opt-in int8 slabs (measured slower than bf16 under XLA on this
-    # hardware, kept for parity coverage): must engage when asked and emit
-    # the identical exact pair set
+    # opt-in int8 stripes (the stripe path, not the panel join): must
+    # engage when asked and emit the identical exact pair set
     eng = ChunkedAllPairs(small_cfg(), chunk_dim=128)
     eng._int8_stripes = True
+    eng._use_panels = False
     eng.build(corpus)
     got = eng.all_pairs(0.4).pair_set()
     assert eng._int8_slabs() is not None  # engaged
     off = ChunkedAllPairs(small_cfg(), chunk_dim=128)
+    off._use_panels = False
     off.build(corpus)
     assert off._int8_slabs() is None  # default: bf16 slabs
     assert off.all_pairs(0.4).pair_set() == got == brute_force_pairs(
@@ -242,7 +229,7 @@ def test_chunked_streaming_equals_batch():
 
 def test_chunked_streaming_grows_capacity_and_dims():
     # force chunk_cap doubling AND brand-new dims across inserts
-    from apsim_tpu.vector.sparse import Vectors
+    from apsim.vector.sparse import Vectors
 
     rng = np.random.default_rng(3)
     eng = ChunkedAllPairs(small_cfg(), chunk_dim=64)
@@ -272,8 +259,8 @@ def test_chunked_streaming_grows_capacity_and_dims():
 def _dormant_corpus():
     # rows 0,1 share dim 5; row 2 has UNIQUE dims {100, 101} (df==1 ->
     # dormant: archived host-side, off the chunk buffers)
-    from apsim_tpu.vector.batch import CSRMatrix
-    from apsim_tpu.vector.sparse import Vectors
+    from apsim.vector.batch import CSRMatrix
+    from apsim.vector.sparse import Vectors
 
     v = Vectors.sparse
     a = 1 / np.sqrt(2)
@@ -297,7 +284,7 @@ def test_chunked_dormant_archived_and_exact():
 
 
 def test_chunked_dormant_activation_on_insert():
-    from apsim_tpu.vector.sparse import Vectors
+    from apsim.vector.sparse import Vectors
     from oracle import brute_force_pairs as bf
 
     corpus = _dormant_corpus()
@@ -313,7 +300,7 @@ def test_chunked_dormant_activation_on_insert():
 
 
 def test_chunked_dormant_topk_and_frozen_match():
-    from apsim_tpu.vector.sparse import Vectors
+    from apsim.vector.sparse import Vectors
 
     corpus = _dormant_corpus()
     eng = ChunkedAllPairs(small_cfg(), chunk_dim=16)
@@ -352,8 +339,8 @@ def test_chunked_streaming_from_empty_with_dormant():
 def test_rebuild_clears_dormant_archive():
     # regression: a rebuild whose corpus has no df==1 dims must not keep the
     # previous build's archive (stale rows would corrupt topk candidates)
-    from apsim_tpu.vector.batch import CSRMatrix
-    from apsim_tpu.vector.sparse import Vectors
+    from apsim.vector.batch import CSRMatrix
+    from apsim.vector.sparse import Vectors
 
     a = 1 / np.sqrt(2)
     v = Vectors.sparse
@@ -372,7 +359,7 @@ def test_rebuild_clears_dormant_archive():
 
 def test_chunked_frozen_empty_insert_indexes_nothing():
     # frozen before anything was indexed: match-only, index stays empty
-    from apsim_tpu.vector.sparse import Vectors
+    from apsim.vector.sparse import Vectors
 
     a = 1 / np.sqrt(2)
     eng = ChunkedAllPairs(small_cfg(), chunk_dim=16)
@@ -432,17 +419,21 @@ def test_chunked_streaming_slab_cache_matches_fallback():
 
 
 def test_host_match_cost_router():
-    # round-4 regression guard: the host spGEMM pays per intersection flop
-    # (measured 9.8 s/256-batch on a 500k power-law corpus vs the device
-    # rebuild's ~1.0 s), so routing must weigh batch df mass, not assume
-    # host is always cheaper beyond the slab budget
+    # the host spGEMM pays per intersection flop (on a 500k power-law corpus
+    # a 256-row batch hits ~128M intersections), so routing must weigh
+    # batch df mass, not assume host is always cheaper beyond the slab
+    # budget
     rng = np.random.default_rng(47)
     corpus = random_sparse_corpus(rng, 120, DIM)
     eng = ChunkedAllPairs(small_cfg(match_slab_budget_mb=0), chunk_dim=64)
     eng.build(corpus)
     nnz = int(eng._shadow.view().indptr[-1])
-    # cold batch: dims nobody uses -> est_flops 0 -> host wins
     cold = np.array([DIM - 1], np.int64)
+    # no device match timed yet: stay on the device
+    assert eng._rebuild_ns_per_nnz is None
+    assert not eng._use_host_match(cold)
+    eng._rebuild_ns_per_nnz = 20.0
+    # cold batch: dims nobody uses -> est_flops 0 -> host wins
     assert eng._ext_df[cold].sum() * eng._host_ns_per_flop < nnz
     assert eng._use_host_match(cold)
     # hot batch: replicate the corpus' own dims until the flop estimate
@@ -452,6 +443,42 @@ def test_host_match_cost_router():
     # no df stats (pre-round-4 restore shape): stay on the device path
     eng._ext_df = None
     assert not eng._use_host_match(cold)
+
+
+def test_router_device_term_is_observed():
+    """The router's device cost per corpus nnz comes from device matches
+    beyond the slab budget that ran with no compile in flight (the fastest
+    one seen); matches against resident slabs are not timed."""
+    from apsim.engine import chunked
+
+    rng = np.random.default_rng(53)
+    corpus = random_sparse_corpus(rng, 100, DIM)
+    seen = []
+    for budget in (0, 7168):
+        eng = ChunkedAllPairs(
+            small_cfg(match_slab_budget_mb=budget), chunk_dim=64
+        )
+        eng.build(corpus)
+        for s in range(0, 80, 20):
+            eng.insert([(f"n{s + i}", corpus.row(s + i)) for i in range(20)],
+                       tau=0.5)
+            seen.append(eng._rebuild_ns_per_nnz)
+    over = [v for v in seen[:4] if v is not None]
+    assert over and all(v > 0 for v in over)
+    assert over == sorted(over, reverse=True)  # the fastest match is kept
+    assert seen[4:] == [None] * 4
+    # a match that compiles is not timed
+    eng = ChunkedAllPairs(small_cfg(match_slab_budget_mb=0), chunk_dim=64)
+    eng.build(corpus)
+    chunked._compile_count()  # listener registered
+
+    def compiling_match(*_):
+        chunked._compiles += 1
+        return np.empty(0, np.int64), np.empty(0, np.int64)
+
+    eng._match_ccsr = compiling_match
+    eng._timed_device_match(None, 0, 0.5)
+    assert eng._rebuild_ns_per_nnz is None
 
 
 def test_chunked_host_match_external_and_dormant():
@@ -486,7 +513,7 @@ def test_chunked_slab_cache_lifecycle():
     # dropped by all_pairs (HBM release) and by geometry growth, and the
     # results stay exact throughout
     from oracle import brute_force_pairs as bf
-    from apsim_tpu.vector.sparse import Vectors
+    from apsim.vector.sparse import Vectors
 
     rng = np.random.default_rng(42)
     corpus = random_sparse_corpus(rng, 60, DIM)
@@ -581,7 +608,7 @@ def test_chunked_topk_width_split(corpus):
     """Bulk k-NN batches are width-split (the [q_rows_cap, row_cap] fp32
     accumulator is budget-bounded like the streaming match); the merged
     result must equal the unsplit one."""
-    from apsim_tpu.config import AllPairsConfig
+    from apsim.config import AllPairsConfig
 
     eng = ChunkedAllPairs(
         AllPairsConfig(vector_dim=DIM, query_tile=64, row_bucket=64,
@@ -601,7 +628,7 @@ def test_chunked_super_tile_override_divides_row_cap():
     row_cap: above 8192 rows row_cap is a multiple of 8192 but not a power
     of two, and a non-divisor stripe silently loses the clamped rows'
     pairs."""
-    from apsim_tpu.config import AllPairsConfig
+    from apsim.config import AllPairsConfig
 
     eng = ChunkedAllPairs(AllPairsConfig(), super_tile=16384)
     eng.n_rows = 20000  # row_cap -> 24576 = 3 * 8192 (not a power of two)
@@ -698,7 +725,7 @@ def test_chunked_restore_falls_back_on_geometry_mismatch(corpus, tmp_path):
     assert e2.all_pairs(0.5).pair_set() == want
 
     # dense-flavor checkpoint (no chunk_* extras) into a chunked engine
-    from apsim_tpu.engine.engine import Engine
+    from apsim.engine.engine import Engine
 
     dense = Engine(small_cfg())
     dense.build(corpus, [f"v{i}" for i in range(corpus.n_rows)])
@@ -875,8 +902,8 @@ def test_paneled_prewarm_covers_crossing_variants(corpus):
     """The background prewarmer compiles the paneled path's three compile
     cliffs ahead of time: doubled sorted capacity (consolidation), doubled
     per-panel slice cap, and the next row_cap's panel count — plus the
-    device re-sort at the new capacity (the 55 s mid-serve ingest freeze
-    in serve_probe_paneled.log phase 1500 was an unwarmed cap_s crossing)."""
+    device re-sort at the new capacity (an unwarmed cap_s crossing freezes
+    ingest mid-serve)."""
     eng = _paneled_forced(chunk_dim=64)
     eng._prewarm_min_rows = 0
     n0 = corpus.n_rows - 20
@@ -911,12 +938,12 @@ def test_paneled_prewarm_covers_crossing_variants(corpus):
 def test_prewarm_retries_transient_lowering_failure(monkeypatch):
     """r5: a transient trace/lowering failure in the background prewarmer
     (jax 0.9.0 races the background ``.lower()`` against a foreground
-    trace — KeyError: Var, docs/round5/serve_probe_defer4k.log) leaves the
+    trace — KeyError: Var) leaves the
     spec QUEUED and retries instead of marking it done; a persistent
     failure gives up after 3 attempts.  A silent miss otherwise becomes a
     33 s cold compile stall mid-serve."""
-    from apsim_tpu.engine import chunked as chunked_mod
-    from apsim_tpu.ops import chunked as chunked_ops
+    from apsim.engine import chunked as chunked_mod
+    from apsim.ops import chunked as chunked_ops
 
     eng = ChunkedAllPairs(small_cfg(match_slab_budget_mb=0), chunk_dim=128)
     monkeypatch.setattr(chunked_mod.time, "sleep", lambda s: None)

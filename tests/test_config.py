@@ -3,7 +3,7 @@ SimilaritySearchService.scala:20-22)."""
 
 import json
 
-from apsim_tpu.config import AllPairsConfig, load_config
+from apsim.config import AllPairsConfig, load_config
 
 
 def test_defaults_match_reference():

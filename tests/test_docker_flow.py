@@ -20,10 +20,10 @@ import time
 
 import pytest
 
-from apsim_tpu import AllPairsConfig, Engine
-from apsim_tpu.cli import main as cli_main
-from apsim_tpu.etl.store import VectorStore
-from apsim_tpu.serve import (
+from apsim import AllPairsConfig, Engine
+from apsim.cli import main as cli_main
+from apsim.etl.store import VectorStore
+from apsim.serve import (
     ClientConnection,
     InteractiveClient,
     RpcServer,

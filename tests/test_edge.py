@@ -4,9 +4,9 @@ duplicate ids, giant rows, tiny corpora."""
 import numpy as np
 import pytest
 
-from apsim_tpu import AllPairsConfig, Engine
-from apsim_tpu.vector.batch import CSRMatrix
-from apsim_tpu.vector.sparse import Vectors
+from apsim import AllPairsConfig, Engine
+from apsim.vector.batch import CSRMatrix
+from apsim.vector.sparse import Vectors
 
 from oracle import brute_force_pairs
 
@@ -116,7 +116,7 @@ def test_tau_zero_rejected_pairs_only_by_dot():
 
 
 def test_pow2_bucketing():
-    from apsim_tpu.vector.batch import pow2_bucket
+    from apsim.vector.batch import pow2_bucket
 
     assert pow2_bucket(1) == 64
     assert pow2_bucket(64) == 64
@@ -131,8 +131,8 @@ def test_compact_capacity_headroom_growth():
     geometrically-doubling headroom (bucket, 2*bucket, 4*bucket, ...)."""
     import numpy as np
 
-    from apsim_tpu.index.compact import CompactSpace
-    from apsim_tpu.vector.batch import CSRMatrix
+    from apsim.index.compact import CompactSpace
+    from apsim.vector.batch import CSRMatrix
 
     bucket = 64
     n = bucket * 2  # active dims == exact bucket multiple
@@ -149,20 +149,22 @@ def test_compact_capacity_headroom_growth():
 
 
 def test_pallas_kernel_rejects_misaligned_tiles():
-    """The kernel grid floors rows//tm etc. — a non-multiple operand must
-    raise instead of silently dropping trailing rows/columns."""
+    """The block decomposition floors rows//tm etc. — a non-multiple
+    operand must raise instead of silently dropping trailing rows/columns."""
     import jax.numpy as jnp
     import numpy as np
     import pytest
 
-    from apsim_tpu.ops import pallas_score as ps
+    from apsim.ops import panel
 
-    x = jnp.zeros((96, 96), jnp.float32)  # 96 % 64 != 0
+    x = jnp.zeros((96, 96), jnp.int8)  # 96 % 64 != 0
+    aux = jnp.zeros((3, 96), jnp.float32)
     bi = jnp.zeros(1, jnp.int32)
     bj = jnp.zeros(1, jnp.int32)
+    off = jnp.zeros(2, jnp.int32)
     with pytest.raises(ValueError, match="divide"):
-        ps.pallas_score_bits(x, bi, bj, np.float32(0.5),
-                             tm=64, tn=64, tk=64, interpret=True)
+        panel.panel_score_bits_int8_ref(x, x, aux, aux, bi, bj, off,
+                                        np.float32(0.5), 64, 64)
 
 
 def test_low_tau_margin_warns_once():
@@ -172,7 +174,7 @@ def test_low_tau_margin_warns_once():
     so capture via a handler on it directly."""
     import logging
 
-    from apsim_tpu.utils.logging import get_logger
+    from apsim.utils.logging import get_logger
 
     records = []
 

@@ -5,8 +5,8 @@ equivalence, top-k, freeze, checkpointing."""
 import numpy as np
 import pytest
 
-from apsim_tpu import AllPairsConfig, Engine
-from apsim_tpu.vector.sparse import Vectors
+from apsim import AllPairsConfig, Engine
+from apsim.vector.sparse import Vectors
 
 from oracle import brute_force_pairs, brute_force_sims, random_sparse_corpus
 
@@ -29,15 +29,17 @@ def corpus():
     vecs = [base.row(i) for i in range(base.n_rows)] + [
         base.row(0), base.row(1), base.row(2)
     ]
-    from apsim_tpu.vector.batch import CSRMatrix
+    from apsim.vector.batch import CSRMatrix
 
     return CSRMatrix.from_vectors(vecs, DIM).normalized()
 
 
+@pytest.mark.parametrize("int8", [True, False], ids=["int8", "float"])
 @pytest.mark.parametrize("tau", [0.3, 0.5, 0.7, 0.9])
-def test_all_pairs_matches_oracle(corpus, tau):
-    eng = Engine(small_cfg())
+def test_all_pairs_matches_oracle(corpus, tau, int8):
+    eng = Engine(small_cfg(pallas_int8=int8))
     eng.build(corpus)
+    assert eng._int8_ok() == int8
     got = eng.all_pairs(tau).pair_set()
     want = brute_force_pairs(corpus, tau)
     assert got == want
@@ -118,9 +120,9 @@ def _engine_flavors():
     """All four engine flavors under one factory signature (cfg) -> engine.
     Admission semantics must be IDENTICAL across them: the same config
     admits the same corpus everywhere (VERDICT r2 gap #1)."""
-    from apsim_tpu.engine.chunked import ChunkedAllPairs
-    from apsim_tpu.parallel import MeshEngine, make_mesh
-    from apsim_tpu.parallel.chunked_mesh import MeshChunkedAllPairs
+    from apsim.engine.chunked import ChunkedAllPairs
+    from apsim.parallel import MeshEngine, make_mesh
+    from apsim.parallel.chunked_mesh import MeshChunkedAllPairs
 
     return [
         pytest.param(lambda cfg: Engine(cfg), id="dense"),
@@ -188,7 +190,7 @@ def test_insert_device_failure_rolls_back(corpus, monkeypatch):
     """A device failure mid-insert must not leave phantom rows: host
     bookkeeping rolls back to the pre-batch state, the device index is
     rebuilt from the shadow, and the engine keeps serving exactly."""
-    import apsim_tpu.ops.score as score_ops_mod
+    import apsim.ops.score as score_ops_mod
 
     tau = 0.4
     eng = Engine(small_cfg())
@@ -207,7 +209,7 @@ def test_insert_device_failure_rolls_back(corpus, monkeypatch):
     assert eng.n_rows == 50 and len(eng.ids) == 50
     assert "x0" not in eng.id_to_row
     # still exact after rollback, and a retried insert works
-    from apsim_tpu.vector.batch import CSRMatrix
+    from apsim.vector.batch import CSRMatrix
 
     head = CSRMatrix(
         50, corpus.n_cols, corpus.indptr[:51],
@@ -231,7 +233,7 @@ def test_small_extract_cap_streaming(corpus):
     for q, sims in out.output.items():
         for c in sims:
             emitted.add((q, c) if q <= c else (c, q))
-    from apsim_tpu.vector.batch import CSRMatrix
+    from apsim.vector.batch import CSRMatrix
 
     sub = CSRMatrix(
         40, corpus.n_cols, corpus.indptr[:41],
@@ -299,14 +301,15 @@ def test_empty_engine():
 
 
 def test_pallas_all_pairs_matches_oracle(corpus):
-    # force the Pallas upper-triangle kernel (interpret mode off-TPU)
-    cfg = small_cfg(
-        use_pallas="on", row_bucket=256, query_tile=256, dim_bucket=2048
-    )
+    # int8 join over several row panels: diagonal AND off-diagonal panel
+    # pairs, one compaction over all of them
+    cfg = small_cfg(row_bucket=256, query_tile=256, dim_bucket=2048)
     eng = Engine(cfg)
+    eng._int8_panel_rows = 64
     eng.build(corpus)
-    assert eng._pallas_ok()
+    assert eng._int8_ok() and eng.row_cap // 64 >= 3
     got = eng.all_pairs(0.5).pair_set()
+    assert eng._used_int8
     assert got == brute_force_pairs(corpus, 0.5)
 
 
@@ -362,8 +365,8 @@ def _near_tie_corpus(n=200, base=0.9):
     # ordered in fp64, with the TRUE best at the LAST row index — the old
     # heuristic 4k+64 over-fetch picked fp32-tied candidates by lowest row
     # index and missed it
-    from apsim_tpu.vector.batch import CSRMatrix
-    from apsim_tpu.vector.sparse import SparseVector
+    from apsim.vector.batch import CSRMatrix
+    from apsim.vector.sparse import SparseVector
 
     vecs = []
     for i in range(n):
@@ -392,7 +395,7 @@ def test_topk_exact_under_near_ties():
 
 
 def test_topk_exact_under_near_ties_chunked():
-    from apsim_tpu.engine.chunked import ChunkedAllPairs
+    from apsim.engine.chunked import ChunkedAllPairs
 
     corpus, q = _near_tie_corpus()
     eng = ChunkedAllPairs(small_cfg(), chunk_dim=128)
@@ -405,7 +408,7 @@ def test_topk_exact_under_near_ties_chunked():
 def _dormant_corpus():
     # rows 0,1 share dim 5; row 2 has UNIQUE dims {100, 101} (df==1 ->
     # dormant: kept off the device, archived host-side)
-    from apsim_tpu.vector.batch import CSRMatrix
+    from apsim.vector.batch import CSRMatrix
 
     v = Vectors.sparse
     a = 1 / np.sqrt(2)
@@ -457,12 +460,14 @@ def test_dormant_topk_and_frozen_match():
 
 
 def test_pallas_int8_matches_oracle(corpus):
-    # int8 kernel (default): the per-pair quantization bound must keep the
-    # pair set exact (interpret mode off-TPU)
-    eng = Engine(small_cfg(use_pallas="on", pallas_int8=True,
+    # int8 join (default): the per-pair quantization bound must keep the
+    # pair set exact
+    eng = Engine(small_cfg(pallas_int8=True,
                            query_tile=256, row_bucket=256, dim_bucket=2048))
     eng.build(corpus)
+    assert eng._int8_ok()
     assert eng.all_pairs(0.5).pair_set() == brute_force_pairs(corpus, 0.5)
+    assert eng._used_int8
 
 
 def test_streaming_singleton_dims_archived_then_promoted():
@@ -498,31 +503,30 @@ def test_streaming_singleton_dims_archived_then_promoted():
 
 
 def CSRMatrix_from(vecs):
-    from apsim_tpu.vector.batch import CSRMatrix
+    from apsim.vector.batch import CSRMatrix
 
     return CSRMatrix.from_vectors(vecs, DIM)
 
 
 def test_compact_bits_prelevel_matches_oracle(corpus):
-    """tm=512 activates the SUPER2 pre-level in _compact_bits (the XLA
+    """512-row panels activate the SUPER2 pre-level in _compact_bits (the
     g512 reduce + 8x smaller nonzero); pair set must stay exact."""
     import jax.numpy as jnp
 
-    from apsim_tpu.ops import pallas_score as ps
+    from apsim.ops import bits, panel
 
-    eng = Engine(small_cfg(use_pallas="off", query_tile=512,
-                           row_bucket=512, dim_bucket=2048))
+    eng = Engine(small_cfg(query_tile=512, row_bucket=512, dim_bucket=2048))
     eng.build(corpus)
     assert eng.row_cap % 512 == 0
-    assert (512 // ps.SUPER) % (ps.SUPER2 // ps.SUPER) == 0
-    q8, aux = ps.quantize_rows(eng.x)
-    tm = tn = 512
-    bi, bj = ps.upper_blocks_rect(eng.row_cap, tm, tn)
-    (rows, cols), packed = ps.allpairs_extract_pallas_int8(
-        q8, aux, jnp.asarray(bi), jnp.asarray(bj), np.float32(0.45),
-        cap=65536, tm=tm, tn=tn, tk=eng.dim_cap, interpret=True,
+    assert (512 // bits.SUPER) % (bits.SUPER2 // bits.SUPER) == 0
+    q8, aux = panel.quantize_rows(eng.x)
+    rb = 512
+    pi, pj = panel.upper_panel_pairs(eng.row_cap // rb)
+    (rows, cols), packed = panel.allpairs_extract_int8(
+        q8, aux, jnp.asarray(pi), jnp.asarray(pj), np.float32(0.45), rb,
+        65536, 8192, 8192,
     )
-    _, _, total, _, _ = ps.unpack_pallas_head(np.asarray(packed))
+    _, _, total, _, _ = bits.unpack_head(np.asarray(packed))
     got = set(
         zip(np.asarray(rows)[:total].tolist(),
             np.asarray(cols)[:total].tolist())
@@ -541,21 +545,20 @@ def test_pallas_int8_excludes_padded_rows(corpus):
     # then crashed the native rescore)
     import jax.numpy as jnp
 
-    from apsim_tpu.ops import pallas_score as ps
+    from apsim.ops import bits, panel
 
-    eng = Engine(small_cfg(use_pallas="on", pallas_int8=True,
+    eng = Engine(small_cfg(pallas_int8=True,
                            query_tile=256, row_bucket=256, dim_bucket=2048))
     eng.build(corpus)
     assert eng.row_cap > corpus.n_rows  # padding actually present
-    q8, aux = ps.quantize_rows(eng.x)
-    tm = tn = 256
-    tk = eng.dim_cap
-    bi, bj = ps.upper_blocks_rect(eng.row_cap, tm, tn)
-    (rows, cols), packed = ps.allpairs_extract_pallas_int8(
-        q8, aux, jnp.asarray(bi), jnp.asarray(bj), eng._tau_eff(0.5),
-        cap=65536, tm=tm, tn=tn, tk=tk, interpret=True,
+    q8, aux = panel.quantize_rows(eng.x)
+    rb = 128
+    pi, pj = panel.upper_panel_pairs(eng.row_cap // rb)
+    (rows, cols), packed = panel.allpairs_extract_int8(
+        q8, aux, jnp.asarray(pi), jnp.asarray(pj), eng._tau_eff(0.5), rb,
+        65536, 8192, 8192,
     )
-    _, _, total, _, _ = ps.unpack_pallas_head(np.asarray(packed))
+    _, _, total, _, _ = bits.unpack_head(np.asarray(packed))
     r = np.asarray(rows)[:total]
     c = np.asarray(cols)[:total]
     assert total < corpus.n_rows ** 2
@@ -567,7 +570,7 @@ def test_insert_device_failure_rolls_back_dormant_archive(monkeypatch):
     a stale entry references a rolled-back row, so a later query sharing
     its dim would emit an out-of-range candidate (and a later activation
     would scatter into a row owned by a different re-inserted vector)."""
-    import apsim_tpu.ops.score as score_ops_mod
+    import apsim.ops.score as score_ops_mod
 
     corpus = _dormant_corpus()
     eng = Engine(small_cfg())
@@ -603,7 +606,7 @@ def test_rollback_commits_promoted_dormant_marks(monkeypatch):
     entry onto the device, so a later activation would add it a second
     time — inflating that row's device score beyond the margin and
     breaking topk's exact-fetch proof."""
-    import apsim_tpu.ops.score as score_ops_mod
+    import apsim.ops.score as score_ops_mod
 
     corpus = _dormant_corpus()  # row 2 has archived dims {100, 101}
     eng = Engine(small_cfg())

@@ -5,23 +5,23 @@ import os
 import numpy as np
 import pytest
 
-from apsim_tpu.etl.ccweb import parse_ccweb_line
-from apsim_tpu.etl.corpus import iter_documents, list_corpus_files, read_document
-from apsim_tpu.etl.store import (
+from apsim.etl.ccweb import parse_ccweb_line
+from apsim.etl.corpus import iter_documents, list_corpus_files, read_document
+from apsim.etl.store import (
     VectorStore,
     load_text_vectors,
     save_text_vectors,
     split_load_range,
 )
-from apsim_tpu.etl.tfidf import (
+from apsim.etl.tfidf import (
     apply_idf,
     hashing_tf,
     idf_weights,
     tfidf_pipeline,
     top_dim_filter,
 )
-from apsim_tpu.vector.batch import CSRMatrix
-from apsim_tpu.vector.sparse import Vectors
+from apsim.vector.batch import CSRMatrix
+from apsim.vector.sparse import Vectors
 
 
 @pytest.fixture
@@ -142,9 +142,9 @@ def test_run_mode_debug_text_tables(tmp_path):
     # hand-written text-only table is readable
     import numpy as np
 
-    from apsim_tpu.etl.store import VectorStore
-    from apsim_tpu.vector.batch import CSRMatrix
-    from apsim_tpu.vector.sparse import Vectors
+    from apsim.etl.store import VectorStore
+    from apsim.vector.batch import CSRMatrix
+    from apsim.vector.sparse import Vectors
 
     vecs = [Vectors.sparse(10, [1, 3], [0.6, 0.8]),
             Vectors.sparse(10, [2], [1.0])]

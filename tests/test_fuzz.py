@@ -4,8 +4,8 @@ the fp64 oracle exactly — batch, streaming, and chunked."""
 import numpy as np
 import pytest
 
-from apsim_tpu import AllPairsConfig, Engine
-from apsim_tpu.engine import ChunkedAllPairs
+from apsim import AllPairsConfig, Engine
+from apsim.engine import ChunkedAllPairs
 
 from oracle import brute_force_pairs, random_sparse_corpus
 
@@ -82,7 +82,7 @@ def test_fuzz_extended(seed):
         extract_cap=int(rng.choice([16, 2048, 1 << 18])),
         extract_group=int(rng.choice([8, 16])),
         matmul_precision=str(rng.choice(["default", "highest"])),
-        use_pallas=str(rng.choice(["auto", "off"])),
+        pallas_int8=bool(rng.choice([True, False])),
     )
     want = brute_force_pairs(csr, tau)
     eng = Engine(cfg)
@@ -100,21 +100,19 @@ def test_fuzz_extended(seed):
 
 @pytest.mark.parametrize("seed", [555, 666])
 def test_fuzz_chunked_panel(seed):
-    """Block-panel path under random configs/panel sizes (use_pallas='on'
-    forces the interpret-mode kernel off-TPU), including a streamed tail
-    that invalidates the sorted-COO cache mid-run."""
+    """int8 panel join under random configs/panel sizes, including a
+    streamed tail that invalidates the sorted-COO cache mid-run."""
     rng = np.random.default_rng(seed)
     n = int(rng.integers(60, 200))
     csr = random_sparse_corpus(rng, n, DIM, nnz_lo=2, nnz_hi=25)
     tau = float(rng.choice([0.3, 0.5]))
-    cfg = random_cfg(rng).replace(use_pallas="on", matmul_precision="default")
+    cfg = random_cfg(rng).replace(matmul_precision="default")
     eng = ChunkedAllPairs(
         cfg, chunk_dim=int(rng.choice([64, 128])),
         panel_rows=int(rng.choice([64, 128])),
     )
-    eng._use_single_slab = bool(rng.integers(0, 2))  # fuzz both modes
     cut = n - int(rng.integers(1, 20))
-    from apsim_tpu.vector.batch import CSRMatrix
+    from apsim.vector.batch import CSRMatrix
 
     head = CSRMatrix(
         cut, csr.n_cols, csr.indptr[: cut + 1],

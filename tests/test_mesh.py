@@ -4,8 +4,8 @@
 import numpy as np
 import pytest
 
-from apsim_tpu import AllPairsConfig
-from apsim_tpu.parallel import MeshEngine, make_mesh
+from apsim import AllPairsConfig
+from apsim.parallel import MeshEngine, make_mesh
 
 from oracle import brute_force_pairs, random_sparse_corpus
 
@@ -33,23 +33,24 @@ def mesh8():
 
 
 def test_mesh_rows_pallas_fast_path(corpus, mesh8):
-    """Rows-sharded Pallas join under shard_map (interpret off-TPU): the
-    per-shard kernel path — each device scores its own row-block schedule
-    against the all-gathered int8 index — with exact parity."""
+    """Rows-sharded int8 join under shard_map: each device scores its
+    striped share of the upper-triangle panel pairs against the
+    all-gathered int8 index — with exact parity."""
     eng = MeshEngine(
-        mesh_cfg("rows", use_pallas="on", row_bucket=512), mesh=mesh8
+        mesh_cfg("rows", row_bucket=512), mesh=mesh8
     )
+    eng._int8_panel_rows = 128  # several panel pairs across the devices
     eng.build(corpus)
     assert eng.x.sharding.num_devices == 8
-    assert eng._pallas_ok() and eng._mesh_rows_geom() is not None
+    assert eng._int8_ok() and eng._mesh_rows_panel() == 128
     for tau in (0.4, 0.7):
         assert eng.all_pairs(tau).pair_set() == brute_force_pairs(corpus, tau)
     # streaming insert keeps the fast path exact
     out = eng.insert([("z0", corpus.row(0))], tau=0.6)
     assert out.output  # duplicate of row 0 must match
-    assert eng._pallas_ok()
+    assert eng._int8_ok()
     got = eng.all_pairs(0.6).pair_set()
-    from apsim_tpu.vector.batch import CSRMatrix
+    from apsim.vector.batch import CSRMatrix
 
     vecs = [corpus.row(i) for i in range(corpus.n_rows)] + [corpus.row(0)]
     ids = [str(i) for i in range(corpus.n_rows)] + ["z0"]
@@ -60,11 +61,11 @@ def test_mesh_rows_pallas_fast_path(corpus, mesh8):
 def test_mesh_rows_pallas_tiny_caps(corpus, mesh8):
     # overflow-retry across the stacked per-device heads
     eng = MeshEngine(
-        mesh_cfg("rows", use_pallas="on", row_bucket=512, extract_cap=1024),
+        mesh_cfg("rows", row_bucket=512, extract_cap=1024),
         mesh=mesh8,
     )
     eng.build(corpus)
-    assert eng._pallas_ok()
+    assert eng._int8_ok()
     assert eng.all_pairs(0.2).pair_set() == brute_force_pairs(corpus, 0.2)
 
 
@@ -143,15 +144,15 @@ def test_shard_layout_introspection(corpus, mesh8):
 
 def test_rows_schedule_balanced_and_complete():
     """The striped per-device schedules must (a) exactly cover the global
-    upper-triangle block schedule and (b) be balanced to ±1 block — the
-    contiguous-partition layout they replaced gave device 0 ~2× the average
-    and every device ran at its padded pace."""
-    from apsim_tpu.ops.mesh_pallas import rows_schedule
-    from apsim_tpu.ops.pallas_score import upper_blocks_rect
+    upper-triangle panel-pair schedule and (b) be balanced to ±1 pair — a
+    contiguous partition would give device 0 ~2× the average, and every
+    device runs at its padded pace."""
+    from apsim.ops.mesh_rows import rows_schedule
+    from apsim.ops.panel import upper_panel_pairs
 
-    row_cap, n_dev, tm, tn = 1024, 8, 64, 64
-    bi_a, bj_a, va_a = rows_schedule(row_cap, n_dev, tm, tn)
-    gi, gj = upper_blocks_rect(row_cap, tm, tn)
+    row_cap, n_dev, rb = 1024, 8, 64
+    bi_a, bj_a, va_a = rows_schedule(row_cap, n_dev, rb)
+    gi, gj = upper_panel_pairs(row_cap // rb)
     got = set()
     counts = []
     for d in range(n_dev):
@@ -165,16 +166,16 @@ def test_rows_schedule_balanced_and_complete():
 def test_mesh_rows_geom_no_brows_alignment():
     """Eligibility regression: with the gathered-copy schedule only
     ``row_cap`` must tile — a corpus whose per-device row block is NOT a
-    multiple of the 1024-row kernel tile (the common case on real corpora)
-    must still qualify for the fast path."""
+    multiple of the panel height (the common case on real corpora) must
+    still qualify for the int8 path."""
     from types import SimpleNamespace
 
-    # the production shape class: row_cap % 1024 == 0 but row_cap // 8
-    # devices (12544) is not a multiple of any TPU tile
+    # row_cap % 1024 == 0 but row_cap // 8 devices (12544) is not a
+    # multiple of the chosen panel height
     fake = SimpleNamespace(
-        cfg=SimpleNamespace(shard_axis="rows"),
+        cfg=SimpleNamespace(shard_axis="rows"), _int8_panel_rows=8192,
         x=object(), row_cap=1024 * 98, dim_cap=4096, n_shards=8,
     )
-    geom = MeshEngine._mesh_rows_geom(fake)
-    assert geom is not None and geom[0] in (1024, 512, 256, 64)
-    assert (fake.row_cap // fake.n_shards) % geom[0] != 0  # the old gate
+    rb = MeshEngine._mesh_rows_panel(fake)
+    assert rb is not None and fake.row_cap % rb == 0 and rb <= 8192
+    assert (fake.row_cap // fake.n_shards) % rb != 0  # the old gate

@@ -15,7 +15,7 @@ import sys
 import jax
 import pytest
 
-from apsim_tpu.parallel import global_mesh, init_multihost, is_coordinator
+from apsim.parallel import global_mesh, init_multihost, is_coordinator
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER = os.path.join(REPO, "tests", "multihost_worker.py")
@@ -78,8 +78,8 @@ def test_cli_multihost_serve_end_to_end(tmp_path):
 
     import numpy as np
 
-    from apsim_tpu.vector.batch import CSRMatrix
-    from apsim_tpu.vector.sparse import SparseVector
+    from apsim.vector.batch import CSRMatrix
+    from apsim.vector.sparse import SparseVector
 
     coord, repl, rpc_port = _free_port(), _free_port(), _free_port()
     cfgfile = str(tmp_path / "cfg.json")
@@ -90,7 +90,7 @@ def test_cli_multihost_serve_end_to_end(tmp_path):
         )
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
-    env["APSIM_PLATFORM"] = "cpu"
+    env["JAX_PLATFORMS"] = "cpu"
     env["XLA_FLAGS"] = (
         env.get("XLA_FLAGS", "")
         + " --xla_force_host_platform_device_count=4"
@@ -102,7 +102,7 @@ def test_cli_multihost_serve_end_to_end(tmp_path):
         e["JAX_NUM_PROCESSES"] = "2"
         e["JAX_PROCESS_ID"] = str(pid)
         procs.append(subprocess.Popen(
-            [sys.executable, "-m", "apsim_tpu.cli", "serve",
+            [sys.executable, "-m", "apsim.cli", "serve",
              "--config", cfgfile, "--mesh",
              "--replicate", f"127.0.0.1:{repl}",
              "--host", "127.0.0.1", "--port", str(rpc_port)],
@@ -110,7 +110,7 @@ def test_cli_multihost_serve_end_to_end(tmp_path):
             text=True,
         ))
     try:
-        from apsim_tpu.serve import ClientConnection
+        from apsim.serve import ClientConnection
 
         rng = np.random.default_rng(3)
         vecs = []
@@ -179,7 +179,7 @@ def test_oplog_auth_token_gate():
     import socket as socklib
     import threading
 
-    from apsim_tpu.serve.replica import OpLogLeader, follow
+    from apsim.serve.replica import OpLogLeader, follow
 
     class DummyEngine:
         def freeze(self):
@@ -225,7 +225,7 @@ def test_oplog_stray_connection_rejected_without_token():
     import socket as socklib
     import threading
 
-    from apsim_tpu.serve.replica import OpLogLeader, follow
+    from apsim.serve.replica import OpLogLeader, follow
 
     class DummyEngine:
         def freeze(self):
@@ -271,14 +271,14 @@ def test_leader_restore_replicates_state(tmp_path):
 
     import numpy as np
 
-    from apsim_tpu import AllPairsConfig, Engine
-    from apsim_tpu.serve.replica import OpLogLeader, follow
+    from apsim import AllPairsConfig, Engine
+    from apsim.serve.replica import OpLogLeader, follow
 
     cfg = AllPairsConfig(
         vector_dim=200, query_tile=32, row_bucket=32, dim_bucket=64
     )
     src = Engine(cfg)
-    from apsim_tpu.vector.sparse import Vectors
+    from apsim.vector.sparse import Vectors
 
     src.build([
         ("a", Vectors.sparse(200, [1, 2], [0.6, 0.8])),
@@ -317,7 +317,7 @@ def test_leader_fails_fast_on_dead_follower():
     message — the multi-host failure story (SURVEY §5 A3)."""
     import socket as socklib
 
-    from apsim_tpu.serve.replica import OpLogLeader
+    from apsim.serve.replica import OpLogLeader
 
     class DummyEngine:
         def freeze(self):
@@ -344,9 +344,9 @@ def test_follower_promotion_on_leader_loss():
     here IS a full replica."""
     import threading
 
-    from apsim_tpu import AllPairsConfig, Engine
-    from apsim_tpu.serve.replica import OpLogLeader, follow
-    from apsim_tpu.vector.sparse import Vectors
+    from apsim import AllPairsConfig, Engine
+    from apsim.serve.replica import OpLogLeader, follow
+    from apsim.vector.sparse import Vectors
 
     cfg = AllPairsConfig(
         vector_dim=200, query_tile=32, row_bucket=32, dim_bucket=64
@@ -475,7 +475,7 @@ def test_follow_torn_final_line_is_promotable():
         def freeze(self):
             self.froze = True
 
-    from apsim_tpu.serve.replica import follow
+    from apsim.serve.replica import follow
 
     eng = F()
     n_ops, clean = follow(eng, host, port)
@@ -489,9 +489,9 @@ def test_restore_from_engine_replicates_frozen_flag():
     matches, silently desyncing the corpora."""
     import threading
 
-    from apsim_tpu import AllPairsConfig, Engine
-    from apsim_tpu.serve.replica import OpLogLeader, follow
-    from apsim_tpu.vector.sparse import Vectors
+    from apsim import AllPairsConfig, Engine
+    from apsim.serve.replica import OpLogLeader, follow
+    from apsim.vector.sparse import Vectors
 
     cfg = AllPairsConfig(
         vector_dim=200, query_tile=32, row_bucket=32, dim_bucket=64
@@ -526,8 +526,8 @@ def test_oplog_bulk_build_framed_50k():
 
     import numpy as np
 
-    from apsim_tpu.bench.scale import synthetic_corpus
-    from apsim_tpu.serve.replica import _JSON_NNZ_LIMIT, OpLogLeader, follow
+    from apsim.bench.scale import synthetic_corpus
+    from apsim.serve.replica import _JSON_NNZ_LIMIT, OpLogLeader, follow
 
     csr = synthetic_corpus(50_000, nnz_mean=30, seed=3)
     assert int(csr.indptr[-1]) > _JSON_NNZ_LIMIT  # really takes the framed path
@@ -571,10 +571,10 @@ def test_oplog_framed_build_engine_parity(monkeypatch):
     contract, now through binary frames)."""
     import threading
 
-    from apsim_tpu import AllPairsConfig, Engine
-    from apsim_tpu.serve import replica
-    from apsim_tpu.serve.replica import OpLogLeader, follow
-    from apsim_tpu.vector.sparse import Vectors
+    from apsim import AllPairsConfig, Engine
+    from apsim.serve import replica
+    from apsim.serve.replica import OpLogLeader, follow
+    from apsim.vector.sparse import Vectors
 
     monkeypatch.setattr(replica, "_JSON_NNZ_LIMIT", 0)  # force framing
     cfg = AllPairsConfig(
@@ -609,9 +609,9 @@ def test_oplog_load_table_ships_reference_not_corpus(tmp_path):
     IDENTICAL batch sequence from their own store reads."""
     import threading
 
-    from apsim_tpu.bench.scale import synthetic_corpus
-    from apsim_tpu.etl.store import VectorStore
-    from apsim_tpu.serve.replica import OpLogLeader, follow
+    from apsim.bench.scale import synthetic_corpus
+    from apsim.etl.store import VectorStore
+    from apsim.serve.replica import OpLogLeader, follow
 
     csr = synthetic_corpus(50_000, nnz_mean=8, seed=5)
     store = VectorStore(str(tmp_path / "store"), run_mode="PRODUCT")
@@ -657,9 +657,9 @@ def test_oplog_load_table_hash_mismatch_fails_fast(tmp_path):
     bulk-load different corpora into one lockstep mesh."""
     import threading
 
-    from apsim_tpu.bench.scale import synthetic_corpus
-    from apsim_tpu.etl.store import VectorStore
-    from apsim_tpu.serve.replica import OpLogLeader, follow
+    from apsim.bench.scale import synthetic_corpus
+    from apsim.etl.store import VectorStore
+    from apsim.serve.replica import OpLogLeader, follow
 
     a = VectorStore(str(tmp_path / "a"), run_mode="PRODUCT")
     b = VectorStore(str(tmp_path / "b"), run_mode="PRODUCT")

@@ -5,10 +5,10 @@ import zlib
 import numpy as np
 import pytest
 
-import apsim_tpu.native as N
-from apsim_tpu.etl.tfidf import hashing_tf
-from apsim_tpu.vector.batch import CSRMatrix, PaddedBatch
-from apsim_tpu.vector.sparse import Vectors
+import apsim.native as N
+from apsim.etl.tfidf import hashing_tf
+from apsim.vector.batch import CSRMatrix, PaddedBatch
+from apsim.vector.sparse import Vectors
 
 DOCS = [
     "hello world hello",
@@ -98,7 +98,7 @@ def test_group_dots_bit_identical_to_merge(native_lib):
     """The grouped scatter/gather rescore must return bit-identical fp64
     dots to the two-pointer merge (same products, same ascending-dim order,
     +0.0 identity adds for unmatched dims; -ffp-contract=off build)."""
-    from apsim_tpu.ops.rescore import build_compact
+    from apsim.ops.rescore import build_compact
 
     rng = np.random.default_rng(11)
     n_rows, n_cols = 300, 5000
@@ -125,7 +125,7 @@ def test_group_dots_bit_identical_to_merge(native_lib):
 def test_group_dots_via_pair_dots(native_lib):
     """pair_dots(compact=...) routes through the grouped native path and
     matches the plain call; a stale compact (wrong size) falls back."""
-    from apsim_tpu.ops.rescore import build_compact, pair_dots
+    from apsim.ops.rescore import build_compact, pair_dots
 
     rng = np.random.default_rng(12)
     indptr, indices, data = _random_csr(rng, 120, 800)
@@ -147,7 +147,7 @@ def test_group_dots_via_pair_dots(native_lib):
 
 
 def test_transfer_throttled_copy(tmp_path):
-    from apsim_tpu.etl.transfer import copy_tree
+    from apsim.etl.transfer import copy_tree
 
     src = tmp_path / "src"
     (src / "sub").mkdir(parents=True)

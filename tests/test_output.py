@@ -5,7 +5,7 @@ import time
 
 import numpy as np
 
-from apsim_tpu.engine.output import OutputBatcher, PairResult, SimilarityOutput
+from apsim.engine.output import OutputBatcher, PairResult, SimilarityOutput
 
 
 def _pair_result():

@@ -6,9 +6,9 @@ import time
 import numpy as np
 import pytest
 
-from apsim_tpu import AllPairsConfig, Engine
-from apsim_tpu.etl.store import VectorStore
-from apsim_tpu.serve import ClientConnection, RpcServer, SimilarityServer
+from apsim import AllPairsConfig, Engine
+from apsim.etl.store import VectorStore
+from apsim.serve import ClientConnection, RpcServer, SimilarityServer
 
 from oracle import brute_force_pairs, random_sparse_corpus
 
@@ -164,7 +164,7 @@ def test_server_checkpoint_restore(tmp_path, corpus):
 
 def test_mesh_server_checkpoint_restore(tmp_path, corpus):
     # regression: a caller-provided (mesh) engine must also restore
-    from apsim_tpu.parallel import MeshEngine, make_mesh
+    from apsim.parallel import MeshEngine, make_mesh
 
     ckpt = str(tmp_path / "ckpt")
     cfg = make_cfg(checkpoint_dir=ckpt)
@@ -178,7 +178,7 @@ def test_mesh_server_checkpoint_restore(tmp_path, corpus):
 
 
 def CSRSlice(csr, n):
-    from apsim_tpu.vector.batch import CSRMatrix
+    from apsim.vector.batch import CSRMatrix
 
     return CSRMatrix(
         n, csr.n_cols, csr.indptr[: n + 1],
@@ -188,7 +188,7 @@ def CSRSlice(csr, n):
 
 def test_chunked_server_async_ingest(corpus):
     # out-of-core engine behind the same server: streaming ingest + stats
-    from apsim_tpu.engine import ChunkedAllPairs
+    from apsim.engine import ChunkedAllPairs
 
     cfg = make_cfg()
     with SimilarityServer(ChunkedAllPairs(cfg, chunk_dim=64), cfg) as srv:
@@ -214,8 +214,8 @@ def test_chunked_server_async_ingest(corpus):
 def test_chunked_server_checkpoint_cross_flavor(tmp_path, corpus):
     # checkpoints are interchangeable across engine flavors: chunked server
     # writes, dense AND mesh-chunked engines restore the same index
-    from apsim_tpu.engine import ChunkedAllPairs
-    from apsim_tpu.parallel import MeshChunkedAllPairs, make_mesh
+    from apsim.engine import ChunkedAllPairs
+    from apsim.parallel import MeshChunkedAllPairs, make_mesh
 
     ckpt = str(tmp_path / "ckpt")
     cfg = make_cfg(checkpoint_dir=ckpt, checkpoint_interval_s=0.0)
@@ -234,7 +234,7 @@ def test_chunked_server_checkpoint_cross_flavor(tmp_path, corpus):
 
 
 def test_profiling_utils(tmp_path):
-    from apsim_tpu.utils.logging import Timer, get_logger
+    from apsim.utils.logging import Timer, get_logger
 
     log = get_logger("apsim.test")
     log.info("structured %s", "record")
@@ -286,7 +286,7 @@ def test_concurrent_clients(corpus):
 def test_interactive_client(tmp_path, corpus):
     import io
 
-    from apsim_tpu.serve import InteractiveClient
+    from apsim.serve import InteractiveClient
 
     store = VectorStore(str(tmp_path))
     store.write("T", corpus)
@@ -315,7 +315,7 @@ def test_flusher_survives_poisoned_batch(corpus):
         assert wait_until(lambda: srv.stats()["n_rows"] == 1)
         # poison: bypass the ingest-boundary validation and enqueue a
         # wrong-dimensionality vector directly (simulates any engine fault)
-        from apsim_tpu.vector.sparse import SparseVector
+        from apsim.vector.sparse import SparseVector
 
         bad = SparseVector(DIM * 4, np.array([DIM * 2], np.int32), [1.0])
         srv._queue.put((False, [("bad", bad)]))
@@ -328,7 +328,7 @@ def test_flusher_survives_poisoned_batch(corpus):
 
 def test_insert_validates_dimensionality(corpus):
     cfg = make_cfg()
-    from apsim_tpu.vector.sparse import SparseVector
+    from apsim.vector.sparse import SparseVector
 
     with SimilarityServer(Engine(cfg), cfg) as srv:
         bad = SparseVector(DIM * 4, np.array([DIM * 2], np.int32), [1.0])
@@ -482,7 +482,7 @@ def test_bulk_load_auto_installs_static_max_weights(tmp_path, corpus):
             for c in sims:
                 emitted.add((q, c) if q <= c else (c, q))
     # oracle over the UNION corpus with the streamed ids
-    from apsim_tpu.vector.batch import CSRMatrix
+    from apsim.vector.batch import CSRMatrix
 
     union = CSRMatrix.from_vectors(
         [base.row(i) for i in range(base.n_rows)]

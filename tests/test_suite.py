@@ -3,7 +3,7 @@ its own parity checks — this is the BASELINE.json config coverage)."""
 
 import numpy as np
 
-from apsim_tpu.bench.suite import run_suite
+from apsim.bench.suite import run_suite
 
 from oracle import random_sparse_corpus
 
@@ -47,7 +47,7 @@ def test_lint_clean():
 def test_rcv1_shape_leg_parity():
     """The second-corpus-shape leg (VERDICT r4 #7): RCV1-shaped synthetic
     through both engine flavors with fp64 oracle parity."""
-    from apsim_tpu.bench.suite import _rcv1_shape_leg
+    from apsim.bench.suite import _rcv1_shape_leg
 
     out = _rcv1_shape_leg(n_rows=512, taus=(0.8,))
     leg = out["tau_0.8"]
@@ -60,7 +60,7 @@ def test_rcv1_like_corpus_shape():
     mass than the power-law synthetic (the property the router A/B needs)."""
     import numpy as np
 
-    from apsim_tpu.bench.scale import rcv1_like_corpus, synthetic_corpus
+    from apsim.bench.scale import rcv1_like_corpus, synthetic_corpus
 
     csr = rcv1_like_corpus(2000, seed=7)
     assert int(csr.indices.max()) < 47_236

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from apsim_tpu.vector.batch import CSRMatrix, PaddedBatch
-from apsim_tpu.vector.sparse import (
+from apsim.vector.batch import CSRMatrix, PaddedBatch
+from apsim.vector.sparse import (
     DenseVector,
     SparseVector,
     Vectors,
@@ -110,7 +110,7 @@ def test_padded_batch():
 
 
 def test_pack_coo_i32():
-    from apsim_tpu.vector.batch import pack_coo_i32
+    from apsim.vector.batch import pack_coo_i32
 
     rows = np.array([5, 9], np.int64)
     cols = np.array([3, 7], np.int64)

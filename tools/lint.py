@@ -26,7 +26,7 @@ import re
 import sys
 
 LINE_LIMIT = 88
-DEFAULT_TARGETS = ["apsim_tpu", "tests", "tools", "bench.py",
+DEFAULT_TARGETS = ["apsim", "tests", "tools", "bench.py",
                    "__graft_entry__.py"]
 
 
